@@ -1,11 +1,11 @@
-"""gqmap_tpu: TPU-native GQMAP dense-correspondence engine.
+"""gqmap_tpu: GQMAP dense-correspondence engine in JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
 motionlife/gqmap-opticalflow (MAP inference over pairwise image-grid MRFs
 via Gauss-Hermite quadrature gradient ascent on Gaussian-mixture
-variational families, specialized to dense optical flow), designed
-TPU-first: whole-lattice vectorized sweeps, mesh-sharded grids with
-XLA-inserted collectives, and Pallas kernels for the quadrature hot path.
+variational families, specialized to dense optical flow): whole-lattice
+vectorized sweeps, mesh-sharded grids with XLA-inserted collectives, and
+Pallas GPU kernels for the hot path.
 """
 
 from .config import FlowRange, GQMAPConfig

@@ -201,6 +201,10 @@ def cmd_sweep(args):
 def cmd_bench(args):
     import subprocess
 
+    # The benchmark runs in a child process, and this parent must never
+    # initialise a JAX backend: a JAX process reserves most of a GPU's
+    # memory when it first touches the device, so a second one on the same
+    # card would fail for want of memory.
     out = subprocess.run([sys.executable, "bench.py"], capture_output=True, text=True)
     sys.stdout.write(out.stdout)
     sys.exit(out.returncode)
@@ -236,6 +240,9 @@ def main(argv=None):
     p = sub.add_parser("bench"); p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
+    from ..utils import enable_compile_cache
+
+    enable_compile_cache()
     args.fn(args)
 
 

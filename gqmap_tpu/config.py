@@ -37,12 +37,10 @@ class GQMAPConfig:
     patch: int = 1                # flow node owns patch x patch image pixels (super: 4)
     data_term: str = "bicubic"    # "bicubic" | "nearest" (legacy I2_cont lookup)
                                   # | "chebyshev" (gather-free spectral term —
-                                  #   VALIDATION-ONLY since r05: it needs K^2
+                                  #   VALIDATION-ONLY: it needs K^2
                                   #   quadrature where cosine is closed-form,
-                                  #   runs at 16% of its VPU bound with no
-                                  #   Pallas kernel (roofline_r04.json), and
-                                  #   the matched A/B shows cosine also more
-                                  #   accurate (campaign ab_* rows). Kept as an
+                                  #   and the matched A/B shows cosine also
+                                  #   more accurate (campaign ab_* rows). Kept as an
                                   #   independent spectral cross-check of the
                                   #   cosine path, not an operating mode.)
                                   # | "cosine" (closed-form spectral term: the
@@ -54,9 +52,8 @@ class GQMAPConfig:
     bicubic_pack: bool = True     # route the 16-tap bicubic sampler through the
                                   # complex-packed gather (8 complex64 taps
                                   # instead of 16 f32 — ops/interp.py
-                                  # sample_bicubic(pack_pairs=True)): gathers
-                                  # are index-rate-bound on TPU, so this halves
-                                  # the exact data term's dominant cost.
+                                  # sample_bicubic(pack_pairs=True)): half the
+                                  # gather index count of the exact data term.
                                   # Values identical up to float associativity
                                   # (parity-pinned in tests/test_interp.py);
                                   # f64 golden runs fall back to the unpacked
@@ -66,10 +63,10 @@ class GQMAPConfig:
     cheb_margin: float = 2.0      # displacement-box margin beyond the mu range
     cheb_ablock: int = 8          # u-degrees per scan block at evaluation
     node_kernel: str = "auto"     # cosine-term evaluator: "xla" (lax.scan mode
-                                  # loop), "pallas" (fused VMEM kernel,
-                                  # kernels/cosine_gq.py — measured 2.9x the
-                                  # XLA path on v5e), "auto" (pallas on a
-                                  # single-device TPU backend, else xla)
+                                  # loop), "pallas" (fused GPU kernel,
+                                  # kernels/cosine_gq.py), "auto" (pallas on a
+                                  # GPU unless GSPMD-sharded — models/gqmap.py
+                                  # use_kernel)
     window_rg: int = 0            # overlapping data-cost window half-size: the
                                   # node potential is the MEAN Charbonnier cost
                                   # over the (2rg+1)^2 pixel window, displacement
@@ -88,15 +85,11 @@ class GQMAPConfig:
     edge_quad_k: int = 0          # 1-D order for edge_quad="reduced";
                                   # 0 = auto (2K+3: beats the tensor rule's
                                   # effective d-axis resolution, see tests)
-    edge_kernel: str = "auto"     # edge evaluator: "xla" (scan + finalize
-                                  # passes), "pallas" (fused VMEM kernel:
-                                  # kernels/edge_reduced_gq.py for
-                                  # edge_quad="reduced", kernels/edge_gq.py
-                                  # for edge_quad="tensor"), "auto" (pallas
-                                  # for the reduced rule on TPU with
-                                  # Charbonnier edges + Stein estimator,
-                                  # same rule as node_kernel; the tensor
-                                  # kernel stays opt-in)
+    edge_kernel: str = "auto"     # reduced-rule Charbonnier edge evaluator:
+                                  # "xla" (scan + finalize passes), "pallas"
+                                  # (fused GPU kernel,
+                                  # kernels/edge_reduced_gq.py), "auto" (same
+                                  # rule as node_kernel)
     gama: float = 1.0             # truncated-quadratic edge scale
     dta: float = 10.0             # truncation cutoff
 
@@ -130,7 +123,7 @@ class GQMAPConfig:
     # --- gradient estimator ---
     gradient_estimator: str = "stein"  # reference Stein identities;
                                        # "autodiff" (jax.grad of the quadrature
-                                       # expectation; the TPU-native heir of the
+                                       # expectation; the vectorized heir of the
                                        # legacy/gqmap_gpuV3.m analytic-derivative
                                        # estimator family); or "prewitt" (the
                                        # literal gpuV3 family: quadrature of the
@@ -193,17 +186,16 @@ class GQMAPConfig:
 
     @classmethod
     def tpu_fast(cls, **kw) -> "GQMAPConfig":
-        """Flagship mixture preset with the TPU-native fast paths: the
-        closed-form cosine data term (zero node quadrature) and the reduced
-        1-D edge quadrature (see PERFORMANCE.md).
+        """Flagship mixture preset on the fast paths: the closed-form cosine
+        data term (zero node quadrature) and the reduced 1-D edge
+        quadrature (see PERF.md).
 
         Degrees 64x16 since r05: the measured accuracy frontier
         (``results/degrees_frontier.jsonl``) shows A=64 matches A=96 on
         both small-motion probes at 10000 its (RubberWhale 0.3703 vs
         0.3713, Dimetrodon 0.3669 vs 0.3671) and the 30000-it verification
-        holds the campaign contract (``flag64x16_cosine`` rows), while
-        kernel time scales ~linearly with A*B -> ~1.5x converged
-        throughput. B=16 is accuracy-load-bearing (B=12 costs +2.4% on
+        holds the campaign contract (``flag64x16_cosine`` rows), with 2/3
+        of the node-term modes. B=16 is accuracy-load-bearing (B=12 costs +2.4% on
         RubberWhale); stereo-scale runs still size A to the GT
         displacement box (campaign uses 192 or, per the Teddy frontier
         points, 96-128 at <0.2% cost)."""
@@ -215,8 +207,8 @@ class GQMAPConfig:
     @classmethod
     def tpu_fast_super(cls, **kw) -> "GQMAPConfig":
         """The reference's strongest-accuracy variant (¼-res super lattice +
-        entropy annealing, ``gqmap_gpuSuper_mix_entropy.m``) on the TPU-native
-        fast paths: the cosine data term expands the *patch-summed* node
+        entropy annealing, ``gqmap_gpuSuper_mix_entropy.m``) on the fast
+        paths: the cosine data term expands the *patch-summed* node
         potential (``build_cos_data(patch=4)``), so the zero-quadrature
         closed form covers the 4x4-patch data term too."""
         return cls.super_entropy(**{**dict(

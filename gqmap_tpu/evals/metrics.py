@@ -1,9 +1,9 @@
 """Structured metrics: AEPE helpers + JSONL run logging.
 
-TPU-native upgrade of the reference's per-iteration ``fprintf`` diagnostics
+Structured upgrade of the reference's per-iteration ``fprintf`` diagnostics
 (``gqmap_gpu_mixture.m:71-72``) and out-of-repo ``.mat`` dumps: one JSONL
 record per evaluation point with iteration, energy, AEPE, logP, wall time
-and throughput (Mpix-sweeps/s/chip).
+and throughput (Mpix-sweeps/s).
 """
 
 from __future__ import annotations

@@ -1,1 +1,1 @@
-from .edge_gq import edge_gq_pallas, pack_table
+"""Pallas kernels for the GPU (Triton route) on the sweep's hot path."""

@@ -1,23 +1,21 @@
-"""Pallas TPU kernel: fused reduced-1D edge gradients (quad + finalize).
+"""Pallas GPU kernel (Triton route): fused reduced-1D edge gradients.
 
-The XLA path for the edge term runs three passes that each round-trip the
-12-plane (dir, chan, L, M, N) edge arrays through HBM: the K1-point scan of
-:func:`gqmap_tpu.ops.gq.gq_accumulate_diff` (three carried accumulators),
-the GQRaw transform, and :func:`gqmap_tpu.ops.gq.finalize`. This kernel
-fuses all of it per lattice tile in VMEM: one read of the five per-site
-inputs, the whole 1-D quadrature loop in registers, and one write of the
-six finalized gradient fields.
+The XLA path for the edge term is the K1-point scan of
+:func:`gqmap_tpu.ops.gq.gq_accumulate_diff` followed by the GQRaw transform
+and :func:`gqmap_tpu.ops.gq.finalize` over the 12-plane (dir, chan, L, M, N)
+edge arrays. This kernel does all of it per block of sites in registers:
+one read of the five per-edge inputs, the 1-D quadrature loop unrolled
+with its nodes as constants, and one write of the six finalized gradient
+fields.
 
 Math identical to ``gq_accumulate_diff`` + ``finalize`` (the exact Gaussian
 conditioning of the difference potential; reference edge semantics
 ``gqmap_gpu_mixture.m:118-146`` with the Bethe edge-entropy term ``+T``,
-``:139-145``). Charbonnier edges only (``gqmap_gpu_mixture.m:180-182``) —
-other edge families use the XLA path.
+``:139-145``). Charbonnier edges only (``gqmap_gpu_mixture.m:180-182``).
 
-One algebraic simplification exploited in-kernel: ``finalize`` computes
-``Sm / sqrt(1-p^2)`` while the reduced transform computes
-``Sm = (o1e^2-o2e^2) sqrt(1-p^2) h2s`` — the ``sqrt(1-p^2)`` factors
-cancel, so the kernel never forms them for the sigma gradients.
+``finalize`` computes ``Sm / sqrt(1-p^2)`` while the reduced transform
+computes ``Sm = (o1e^2-o2e^2) sqrt(1-p^2) h2s``: the ``sqrt(1-p^2)``
+factors cancel, so the kernel never forms them for the sigma gradients.
 """
 
 from __future__ import annotations
@@ -27,9 +25,8 @@ import math
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..ops.gq import GQGrads
 from ..ops.quadrature import gauss_hermite
@@ -41,16 +38,30 @@ _SQRT_PI = math.sqrt(math.pi)
 _INV_PI = 1.0 / math.pi
 _CONST1 = 1.0 + math.log(2.0 * math.pi)
 
+# Sites per program and warps per program, chosen on an H100 among 128/4,
+# 256/4 and 512/8 (PERF.md).
+BLOCK = 512
+NUM_WARPS = 8
 
-def _kernel(tab_ref, alpha_ref, t_ref, u1_ref, o1_ref, u2_ref, o2_ref, p_ref,
+
+def _kernel(alpha_ref, t_ref, u1_ref, o1_ref, u2_ref, o2_ref, p_ref,
             da_ref, du1_ref, du2_ref, do1_ref, do2_ref, dp_ref,
-            *, K1: int, L: int, lam: float, eps: float, entropy_scale: float):
+            *, nodes, CL: int, L: int, S: int, block: int,
+            lam: float, eps: float, entropy_scale: float):
     dtype = u1_ref.dtype
-    u1 = u1_ref[0]
-    o1 = o1_ref[0]
-    u2 = u2_ref[0]
-    o2 = o2_ref[0]
-    p = p_ref[0]
+    r = pl.program_id(0)            # (dir, chan, component) plane
+    r1 = r % CL                     # endpoint 1 is the site itself
+    idx = pl.program_id(1) * block + jnp.arange(block, dtype=jnp.int32)
+    valid = idx < S
+
+    def load(ref, row, other=0.0):
+        return plgpu.load(ref.at[row, idx], mask=valid, other=other)
+
+    u1 = load(u1_ref, r1)
+    o1 = load(o1_ref, r1, 1.0)
+    u2 = load(u2_ref, r)
+    o2 = load(o2_ref, r, 1.0)
+    p = load(p_ref, r)
 
     o1e = o1 * _SQRT2
     o2e = o2 * _SQRT2
@@ -59,119 +70,76 @@ def _kernel(tab_ref, alpha_ref, t_ref, u1_ref, o1_ref, u2_ref, o2_ref, p_ref,
     c = jnp.maximum(c, jnp.asarray(jnp.finfo(dtype).tiny, dtype))
     rc = jnp.sqrt(c)
 
-    lam_ = jnp.asarray(lam, dtype)
-    eps_ = jnp.asarray(eps, dtype)
-    zeros = jnp.zeros_like(u1)
-
-    def body(k, acc):
-        h0, h1, h2 = acc
-        x = tab_ref[0, k]
-        w = tab_ref[1, k]
+    h0 = h1 = h2 = jnp.zeros((block,), dtype)
+    for x, w in nodes:
         d = delta + rc * x
-        gv = w * (-lam_ * jnp.sqrt(eps_ + d * d))
-        return (h0 + gv, h1 + gv * x, h2 + gv * (x * x - 0.5))
+        gv = (-lam * w) * jnp.sqrt(eps + d * d)
+        h0 = h0 + gv
+        h1 = h1 + gv * x
+        h2 = h2 + gv * (x * x - 0.5)
 
-    # Python-unrolled (K1 is a small static count, ~9): the three carried
-    # accumulators span ~L*rows*N/1024 VREGs each and a fori backedge forces
-    # them through VMEM every iteration (same spill mechanism measured for
-    # the node kernel, results/kernel_tune.jsonl); unrolling also turns the
-    # SMEM quadrature-table reads into static indices.
-    acc = (zeros, zeros, zeros)
-    for k in range(K1):
-        acc = body(k, acc)
-    h0, h1, h2 = acc
-
-    sqpi = jnp.asarray(_SQRT_PI, dtype)
-    h1s = sqpi * h1 / rc
-    h2s = sqpi * h2 / c
-    Ei = sqpi * h0
+    h1s = _SQRT_PI * h1 / rc
+    h2s = _SQRT_PI * h2 / c
+    Ei = _SQRT_PI * h0
     Z1 = (o1e - p * o2e) * h1s
     Z2 = (p * o1e - o2e) * h1s
-    Sa = sqpi * h2
-    # Sm / sqrt(1-p^2) with the sqrt factors cancelled (module docstring)
+    Sa = _SQRT_PI * h2
     sm_w = (o1e * o1e - o2e * o2e) * h2s
     Sxy = (0.5 * p * (o1e * o1e + o2e * o2e) - o1e * o2e) * h2s
 
-    a = jnp.concatenate(
-        [jnp.full((1,) + u1.shape[1:], alpha_ref[l], dtype) for l in range(L)], 0
-    )
-    T = t_ref[0]
-    cn = jnp.asarray(entropy_scale, dtype) * T
-    inv_pi = jnp.asarray(_INV_PI, dtype)
+    a = plgpu.load(alpha_ref.at[r1 % L])
+    cn = entropy_scale * plgpu.load(t_ref.at[0])
     pr = 1.0 - p * p
-    sqrtpr = jnp.sqrt(pr)
 
-    da = Ei * inv_pi - cn * (_CONST1 + jnp.log(sqrtpr * o1 * o2))
-    da_ref[0] = da
-    du1_ref[0] = a * (Z1 - p * Z2) * (_SQRT2 / (o1 * pr)) * inv_pi
-    du2_ref[0] = a * (Z2 - p * Z1) * (_SQRT2 / (o2 * pr)) * inv_pi
-    do1_ref[0] = a * ((Sa + sm_w) * inv_pi - cn) / o1
-    do2_ref[0] = a * ((Sa - sm_w) * inv_pi - cn) / o2
-    dp_ref[0] = a * ((2.0 * Sxy - p * Sa) * inv_pi + cn * p) / pr
+    def store(ref, v):
+        plgpu.store(ref.at[r, idx], v, mask=valid)
+
+    store(da_ref, Ei * _INV_PI - cn * (_CONST1 + jnp.log(jnp.sqrt(pr) * o1 * o2)))
+    store(du1_ref, a * (Z1 - p * Z2) * (_SQRT2 / (o1 * pr)) * _INV_PI)
+    store(du2_ref, a * (Z2 - p * Z1) * (_SQRT2 / (o2 * pr)) * _INV_PI)
+    store(do1_ref, a * ((Sa + sm_w) * _INV_PI - cn) / o1)
+    store(do2_ref, a * ((Sa - sm_w) * _INV_PI - cn) / o2)
+    store(dp_ref, a * ((2.0 * Sxy - p * Sa) * _INV_PI + cn * p) / pr)
 
 
 def edge_reduced_grads_pallas(
     mu, sg, u2e, o2e, rou, alpha, T,
-    k1: int, lambdas: float, epsn: float, entropy_scale: float,
-    rows: int = 8, interpret: bool = False,
+    k1: int, lambdas: float, epsn: float, entropy_scale: float, *,
+    block: int = BLOCK, num_warps: int = NUM_WARPS, interpret: bool = False,
 ) -> GQGrads:
     """Finalized edge gradients over the (dir, chan, L, M, N) edge lattice.
 
     ``mu``/``sg`` are the (chan, L, M, N) state stacks (endpoint 1 is the
     dir-broadcast of the site itself), ``u2e``/``o2e``/``rou`` the
-    (dir, chan, L, M, N) neighbor stacks. Returns :class:`GQGrads` with
-    (dir, chan, L, M, N) fields (``E = a * da`` composed outside is one
-    cheap fused multiply).
+    (dir, chan, L, M, N) neighbor stacks. ``interpret=True`` runs the
+    kernel on the CPU (tests only).
     """
     C, L, M, N = mu.shape
     D = u2e.shape[0]
+    S = M * N
     dtype = mu.dtype
     x, w = gauss_hermite(k1)
-    tab = jnp.asarray(np.stack([x, w]), dtype)
-    alpha = jnp.asarray(alpha, dtype).reshape(L)
-    Tv = jnp.asarray(T, dtype).reshape(1)
-
-    u2f = u2e.reshape(D * C, L, M, N)
-    o2f = o2e.reshape(D * C, L, M, N)
-    pf = rou.reshape(D * C, L, M, N)
-
-    rows = min(rows, M)
-    if M % rows and rows % 8:
-        rows = min(8, M) if M >= 8 else M
-    grid = (D * C, -(-M // rows))
-
-    blk = (1, L, rows, N)
-    end1_spec = pl.BlockSpec(blk, lambda dt, im: (dt % C, 0, im, 0),
-                             memory_space=pltpu.VMEM)
-    end2_spec = pl.BlockSpec(blk, lambda dt, im: (dt, 0, im, 0),
-                             memory_space=pltpu.VMEM)
-    out_spec = end2_spec
-    out_shape = [jax.ShapeDtypeStruct((D * C, L, M, N), dtype)] * 6
+    nodes = tuple((float(xi), float(wi)) for xi, wi in zip(x, w))
 
     fn = pl.pallas_call(
-        functools.partial(_kernel, K1=k1, L=L, lam=float(lambdas),
-                          eps=float(epsn), entropy_scale=float(entropy_scale)),
-        grid=grid,
-        in_specs=[
-            # tab (2, K1) lives in SMEM: the quadrature loop reads it at a
-            # dynamic index k, and Mosaic only supports dynamic scalar
-            # indexing from scalar memory (a VMEM vector.load at a dynamic
-            # lane offset fails to compile on hardware).
-            pl.BlockSpec(memory_space=pltpu.SMEM),        # tab (2, K1)
-            pl.BlockSpec(memory_space=pltpu.SMEM),        # alpha (L,)
-            pl.BlockSpec(memory_space=pltpu.SMEM),        # T (1,)
-            end1_spec, end1_spec, end2_spec, end2_spec, end2_spec,
-        ],
-        out_specs=[out_spec] * 6,
-        out_shape=out_shape,
+        functools.partial(
+            _kernel, nodes=nodes, CL=C * L, L=L, S=S, block=block,
+            lam=float(lambdas), eps=float(epsn),
+            entropy_scale=float(entropy_scale)),
+        grid=(D * C * L, pl.cdiv(S, block)),
+        out_shape=[jax.ShapeDtypeStruct((D * C * L, S), dtype)] * 6,
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps),
+        backend="triton",
         interpret=interpret,
+        name="edge_reduced_grads",
     )
-    da, du1, du2, do1, do2, dp = fn(tab, alpha, Tv, mu, sg, u2f, o2f, pf)
-
-    def r(x):
-        return x.reshape(D, C, L, M, N)
-
-    da = r(da)
-    a5 = alpha.reshape(1, 1, L, 1, 1)
-    return GQGrads(da=da, du1=r(du1), du2=r(du2), do1=r(do1), do2=r(do2),
-                   dp=r(dp), E=a5 * da)
+    outs = fn(
+        jnp.asarray(alpha, dtype).reshape(L), jnp.asarray(T, dtype).reshape(1),
+        mu.reshape(C * L, S), sg.reshape(C * L, S),
+        u2e.reshape(D * C * L, S), o2e.reshape(D * C * L, S),
+        rou.reshape(D * C * L, S),
+    )
+    da, du1, du2, do1, do2, dp = (o.reshape(D, C, L, M, N) for o in outs)
+    a5 = jnp.asarray(alpha, dtype).reshape(1, 1, L, 1, 1)
+    return GQGrads(da=da, du1=du1, du2=du2, do1=do1, do2=do2, dp=dp,
+                   E=a5 * da)

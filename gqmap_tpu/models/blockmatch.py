@@ -6,7 +6,7 @@ with a normalized Gaussian window (``legacy/Gaussian_filter.m``); the
 argmin over the +-U x +-V window gives an integer flow field usable to
 initialize the GQMAP solvers.
 
-TPU-native: the (2U+1)(2V+1) shifted absolute-difference maps are stacked
+Vectorized: the (2U+1)(2V+1) shifted absolute-difference maps are stacked
 as channels and smoothed with one depthwise ``lax.conv``.
 """
 

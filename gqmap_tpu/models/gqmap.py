@@ -61,7 +61,7 @@ class GQState(NamedTuple):
     (``gqmap_gpu_mixture.m:18-24``)."""
 
     w: jnp.ndarray        # (L,) mixture logits (or weights for projsplx mode)
-    muu: jnp.ndarray      # (L, M, N)   [lattice axes trail: TPU (8,128) tiling]
+    muu: jnp.ndarray      # (L, M, N)   [lattice axes trail]
     muv: jnp.ndarray      # (L, M, N)
     sigmau: jnp.ndarray   # (L, M, N)
     sigmav: jnp.ndarray   # (L, M, N)
@@ -76,8 +76,7 @@ class Problem(NamedTuple):
 
     Everything a sweep reads besides the state must be HERE (a jit
     argument): arrays captured by closure become embedded HLO constants,
-    which this runtime re-materializes per execution (measured ~1.3 s/call
-    for a 42 KB mask) and which blow up compile times.
+    which blow up compile times.
     """
 
     I1: jnp.ndarray       # (Mo, No) frame 1 grayscale
@@ -109,30 +108,27 @@ def flow_lattice_shape(cfg: GQMAPConfig, image_shape) -> tuple[int, int]:
     return Mo // cfg.patch, No // cfg.patch
 
 
-def _use_flat_cos(cfg: GQMAPConfig, M: int, N: int) -> bool:
-    """Build the cosine coefficient field in the FLAT site layout?
+def use_kernel(setting: str, field: str, sharded: bool) -> bool:
+    """Whether a sweep runs a Pallas kernel (``True``) or XLA's path.
 
-    Only where the single-device TPU Pallas path will consume it (the
-    distributed layers 2-D block-shard the coefficient field over the
-    lattice axes, which a flat layout would break), and only when the
-    lattice's (8, 128)-tile padding actually wastes >2% (ops/cosine.py
-    ``flat_pack_shape``; e.g. the 452-wide flagship pads to 512 lanes —
-    ~13% dead mode work per sweep without the repack).
+    ``setting`` is the config's ``"auto" | "xla" | "pallas"``. The kernels
+    are Triton kernels for the GPU. They run on a GPU backend whenever the
+    sweep is not GSPMD-sharded (``sharded``): a Pallas call is opaque to
+    GSPMD's partitioner, whereas inside a ``shard_map`` body every array
+    is already the local block. An explicit ``"pallas"`` where no kernel
+    can run raises instead of falling back.
     """
-    if cfg.data_term != "cosine" or cfg.gradient_estimator == "autodiff":
+    if setting not in ("auto", "xla", "pallas"):
+        raise ValueError(f"unknown {field} {setting!r}")
+    if setting == "xla":
         return False
-    if cfg.node_kernel not in ("auto", "pallas"):
-        return False
-    try:
-        if not (jax.default_backend() == "tpu" and jax.device_count() == 1):
-            return False
-    except Exception:
-        return False
-    from ..ops.cosine import flat_pack_shape
-
-    eff_2d = (-(-M // 8) * 8) * (-(-N // 128) * 128)
-    Mf, Nf = flat_pack_shape(M * N)
-    return eff_2d > 1.02 * Mf * Nf
+    available = jax.default_backend() == "gpu" and not sharded
+    if setting == "pallas" and not available:
+        raise ValueError(
+            f"{field}='pallas' needs an unsharded sweep on a GPU backend "
+            f"(backend {jax.default_backend()!r}, sharded={sharded})"
+        )
+    return available
 
 
 def make_problem(cfg: GQMAPConfig, I1, I2, flow_range: FlowRange | None = None) -> Problem:
@@ -173,8 +169,7 @@ def make_problem(cfg: GQMAPConfig, I1, I2, flow_range: FlowRange | None = None) 
                flow_range.minv - m, flow_range.maxv + m)
         cheb = build_cos_data(I1, tab, cfg.lambdad, cfg.epsn, box,
                               A=cfg.cheb_p, B=cfg.cheb_q, patch=cfg.patch,
-                              window_rg=cfg.window_rg, pack=cfg.bicubic_pack,
-                              flat=_use_flat_cos(cfg, *flow_lattice_shape(cfg, I1.shape)))
+                              window_rg=cfg.window_rg, pack=cfg.bicubic_pack)
     else:
         raise ValueError(f"unknown data_term {cfg.data_term!r}")
     grad_tabs = None
@@ -273,13 +268,17 @@ class DistHooks(NamedTuple):
     local_lattice: tuple
 
 
-def make_sweep(cfg: GQMAPConfig, image_shape, dist: "DistHooks | None" = None) -> Callable[[Problem, GQState], tuple[GQState, SweepAux]]:
+def make_sweep(
+    cfg: GQMAPConfig, image_shape, dist: "DistHooks | None" = None,
+    sharded: bool = False,
+) -> Callable[[Problem, GQState], tuple[GQState, SweepAux]]:
     """Build the jit-able single-sweep update (one synchronous Jacobi step).
 
     ``image_shape`` fixes the lattice geometry; the per-run constants
     (frames, flow range) are passed at call time as a :class:`Problem` so
     they stay jit *arguments* — closing over concrete device arrays would
-    bake them into the compiled HLO as giant constants.
+    bake them into the compiled HLO as giant constants. ``sharded`` says the
+    sweep will be jitted over GSPMD-sharded arrays (see :func:`use_kernel`).
     """
     dt = _dt(cfg)
     M, N = flow_lattice_shape(cfg, image_shape)
@@ -309,56 +308,19 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: "DistHooks | None" = None) -
     roll = dist.roll if dist is not None else jnp.roll
     psum = dist.psum if dist is not None else (lambda x: x)
 
-    # Kernel choice is trace-time, not runtime. The Pallas kernels are
-    # Mosaic/TPU-only and opaque to GSPMD's propagation, so "auto" enables
-    # them (a) on single-device TPU runs and (b) per-shard inside the
-    # shard_map halo path (`dist is not None`), where every array the kernel
-    # sees is already the local block — the standard Pallas-under-shard_map
-    # pattern. Multi-device GSPMD (dist None, >1 device) keeps the XLA path.
-    # TPU is an explicit allowlist: an unknown future backend must not be
-    # handed a Mosaic kernel.
-    def _pick_kernel(setting: str, field: str) -> bool:
-        if setting == "pallas":
-            return True
-        if setting == "xla":
-            return False
-        if setting != "auto":
-            raise ValueError(f"unknown {field} {setting!r}")
-        try:
-            return jax.default_backend() == "tpu" and (
-                dist is not None or jax.device_count() == 1
-            )
-        except Exception:
-            return False
-
-    # Cosine node-term evaluator: the fused Pallas kernel is ~2.9x the XLA
-    # mode-loop on v5e (PERFORMANCE.md).
-    use_pallas = (
+    # Kernel choice is trace-time (use_kernel). The autodiff estimator
+    # differentiates the XLA expectation, so it never takes a kernel; the
+    # edge kernel covers the reduced Charbonnier rule.
+    use_node_kernel = (
         cfg.data_term == "cosine"
         and cfg.gradient_estimator != "autodiff"
-        and _pick_kernel(cfg.node_kernel, "node_kernel")
+        and use_kernel(cfg.node_kernel, "node_kernel", sharded)
     )
-
-    # Fused reduced-edge evaluator: quad + transform + finalize in one VMEM
-    # pass instead of three HBM round-trips over the 12-plane edge arrays
-    # (kernels/edge_reduced_gq.py; measured on v5e 376x452 L=3 K=9
-    # in-segment: 21.3 ms/sweep vs 23.1 ms XLA).
-    use_edge_pallas = (
+    use_edge_kernel = (
         cfg.edge_quad == "reduced"
         and cfg.edge_kind == "charbonnier"
         and cfg.gradient_estimator != "autodiff"
-        and _pick_kernel(cfg.edge_kernel, "edge_kernel")
-    )
-
-    # Fused tensor-rule edge kernel (kernels/edge_gq.py): the K^2 2-D rule
-    # with the whole quadrature loop in VMEM. Opt-in only
-    # (edge_kernel="pallas"): the flagship path uses the reduced 1-D rule,
-    # and "auto" must not silently change the tensor path's cost profile.
-    use_edge_tensor_pallas = (
-        cfg.edge_quad == "tensor"
-        and cfg.edge_kind == "charbonnier"
-        and cfg.gradient_estimator != "autodiff"
-        and cfg.edge_kernel == "pallas"
+        and use_kernel(cfg.edge_kernel, "edge_kernel", sharded)
     )
 
     def sweep(problem: Problem, state: GQState) -> tuple[GQState, SweepAux]:
@@ -393,7 +355,7 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: "DistHooks | None" = None) -
             reference dataflow (gqmap_gpu_mixture.m:29-46) unchanged.
             """
             if cfg.gradient_estimator == "autodiff":
-                # TPU-native heir of the legacy/gqmap_gpuV3.m analytic-derivative
+                # Vectorized heir of the legacy/gqmap_gpuV3.m analytic-derivative
                 # estimator family: all parameter gradients (incl. the neighbor
                 # scatter-back and the softmax chain) via jax.grad of the
                 # quadrature-estimated expected energy.
@@ -464,14 +426,11 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: "DistHooks | None" = None) -
                     gn = finalize_chain(raw_c, a3, state.sigmau, state.sigmav,
                                         state.pn, T, NODE)
                 elif cfg.data_term == "cosine":
-                    if use_pallas:
+                    if use_node_kernel:
                         from ..kernels.cosine_gq import cos_node_grads_pallas
 
-                        # a_block=None: the kernel applies its tuned empirical
-                        # default (a_block=min(A, 24); no VMEM-bytes rule fits
-                        # both measured shapes — results/kernel_tune.jsonl).
-                        # cfg.cheb_ablock is the scan-path chunk knob, not the
-                        # Pallas tile.
+                        # cfg.cheb_ablock is the XLA scan's u-block size; the
+                        # kernel loops over every u-degree inside a program.
                         gn = cos_node_grads_pallas(
                             problem.cheb, state.muu, state.muv, state.sigmau,
                             state.sigmav, state.pn, a3, T, NODE,
@@ -496,7 +455,7 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: "DistHooks | None" = None) -
                 o1e = sg[None]
                 u2e = jnp.stack([roll(mu, -1, -2), roll(mu, -1, -1)], axis=0)
                 o2e = jnp.stack([roll(sg, -1, -2), roll(sg, -1, -1)], axis=0)
-                if use_edge_pallas:
+                if use_edge_kernel:
                     from ..kernels.edge_reduced_gq import edge_reduced_grads_pallas
 
                     ge = edge_reduced_grads_pallas(
@@ -505,13 +464,6 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: "DistHooks | None" = None) -
                     )
                 elif cfg.edge_quad == "reduced":
                     raw_e = gq_accumulate_diff(edge_fd, u1e, u2e, o1e, o2e, state.rou, tab1)
-                    ge = finalize(raw_e, a3, o1e, o2e, state.rou, T, EDGE)
-                elif use_edge_tensor_pallas:
-                    from ..kernels.edge_gq import edge_gq_pallas
-
-                    raw_e = edge_gq_pallas(
-                        u1e, u2e, o1e, o2e, state.rou, cfg.K, cfg.lambdas, cfg.epsn
-                    )
                     ge = finalize(raw_e, a3, o1e, o2e, state.rou, T, EDGE)
                 else:
                     raw_e = gq_accumulate(edge_f, u1e, u2e, o1e, o2e, state.rou, tab)
@@ -630,12 +582,11 @@ def make_segment_runner(cfg: GQMAPConfig, image_shape, mesh=None):
     block-sharded over the mesh's (x, y) axes (GSPMD inserts the halo
     collectives and psums).
     """
-    sweep = make_sweep(cfg, image_shape)
+    # Sharding comes from the argument placement (shard_state /
+    # shard_problem in solve()); jit propagates it, GSPMD partitions.
+    sweep = make_sweep(cfg, image_shape, sharded=mesh is not None)
     cap = cfg.eval_every
     dt = _dt(cfg)
-    # mesh note: sharding comes from the argument placement (shard_state /
-    # shard_problem in solve()); jit propagates it, GSPMD partitions.
-    del mesh
 
     @jax.jit
     def seg(problem: Problem, state: GQState, limit):

@@ -1,10 +1,8 @@
 """Gather-free spectral (Chebyshev) data term.
 
-TPU v5e has no vector-gather hardware: arbitrary-index loads run at
-~150M taps/s through XLA, making the reference's per-sample 16-tap bicubic
-data term the sweep bottleneck (~660M taps/sweep at Middlebury scale).
-This module replaces the per-sample *lookup* with per-sample *dense
-compute*, which the VPU does at Tflop/s:
+The reference's per-sample 16-tap bicubic data term is gather-bound
+(~660M taps/sweep at Middlebury scale). This module replaces the
+per-sample *lookup* with per-sample *dense compute*:
 
 1. Per pixel, the displacement-cost surface
    ``npot(u, v) = -lambda_d sqrt(eps + (I1(i,j) - I2^b(i+v, j+u))^2)``
@@ -19,7 +17,7 @@ compute*, which the VPU does at Tflop/s:
 
 Approximation knobs: box margin (samples beyond the box clamp to its edge,
 mirroring the reference's image-boundary position clamp) and the degrees
-(P, Q). This is an additional TPU-native operating mode; the exact
+(P, Q). This is an additional operating mode; the exact
 gather-based bicubic/nearest terms remain available.
 """
 
@@ -110,12 +108,14 @@ def build_cheb_data(
     from .cosine import _eval_sample_grid
 
     uv_grid = np.stack(np.broadcast_arrays(us[:, None], vs[None, :]), -1).reshape(-1, 2)
-    vals = _eval_sample_grid(eval_node, uv_grid, (M, N), dtype)
+    vals = _eval_sample_grid(eval_node, uv_grid, dtype)
     vals = vals.reshape(P, Q, M, N)
 
     Du = jnp.asarray(_dct_matrix(P), dtype)
     Dv = jnp.asarray(_dct_matrix(Q), dtype)
-    coeffs = jnp.einsum("ap,bq,pqmn->abmn", Du, Dv, vals)
+    # HIGHEST: a GPU may otherwise run an f32 contraction in TF32 (~3 digits).
+    coeffs = jnp.einsum("ap,bq,pqmn->abmn", Du, Dv, vals,
+                        precision=jax.lax.Precision.HIGHEST)
     return ChebData(
         coeffs=coeffs,
         lo_u=jnp.asarray(lo_u, dtype), hi_u=jnp.asarray(hi_u, dtype),

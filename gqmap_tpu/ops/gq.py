@@ -13,10 +13,10 @@ i.e. the symmetric square root of ``[[1, p], [p, 1]]`` (s^2+t^2 = 1,
 / ``edge_grad_spectral``); the entropy terms use Bethe counting numbers
 (-3T per node, +T per edge on a 4-connected grid, ``:109-115, :139-145``).
 
-TPU-native design: instead of one CUDA thread per lattice site running a
+Vectorized design: instead of one CUDA thread per lattice site running a
 scalar K^2 loop, the whole lattice is updated by a ``lax.scan`` over
 quadrature chunks, each step fully vectorized over every site (and mixture
-component / edge direction / channel) on the VPU. Only six accumulators are
+component / edge direction / channel). Only six accumulators are
 carried; the per-point integrands are algebraically refactored so that all
 ``p``-dependent scaling happens once per site in :func:`finalize` rather
 than once per quadrature point:
@@ -107,10 +107,9 @@ def gq_accumulate(
     (C = quadrature chunk, LEADING axis) and must return the same shape. All
     site arrays broadcast together to ``site_shape``.
 
-    TPU layout note: the chunk axis leads (and lattice axes trail) so the
-    big per-point intermediates keep (M, N) in the minor-most positions —
-    trailing small axes would be padded to the (8, 128) native tile, a
-    >10x HBM blowup.
+    Layout note: the chunk axis leads (and lattice axes trail) so the big
+    per-point intermediates keep (M, N) in the minor-most, contiguous
+    positions.
     """
     dtype = u1.dtype
     s = (jnp.sqrt(1.0 + p) + jnp.sqrt(1.0 - p)) * 0.5
@@ -166,7 +165,7 @@ def gq_accumulate_diff(
 ) -> GQRaw:
     """Difference-reduced quadrature: the six sums for ``f(x1,x2) = gd(x1-x2)``.
 
-    TPU-native replacement for the K^2-point tensor rule on *edge* potentials
+    Replacement for the K^2-point tensor rule on *edge* potentials
     (both reference edge families are pure difference potentials:
     ``gqmap_gpu_mixture.m:180-182``, ``legacy/gqmap_cpu.m:42-44``). Under the
     whitened bivariate Gaussian, ``d = x1 - x2 = delta + a*XI + b*XJ`` with

@@ -7,8 +7,8 @@ term: a padded/extrapolated image ``VV`` (``gqmap_gpu_mixture.m:191-208``,
 (``gqmap_gpu_mixture.m:156-179``, ``node_pot``). Accuracy parity of the whole
 engine hinges on matching it exactly, so this module replicates both pieces
 bit-faithfully (up to float associativity) while expressing the gather the
-TPU-friendly way: one batched ``take`` over a stacked tap-offset axis
-followed by the fused separable weight contraction on the VPU.
+vectorized way: one batched ``take`` over a stacked tap-offset axis
+followed by the fused separable weight contraction.
 
 Coordinates follow MATLAB 1-based convention throughout: a query at
 ``(Xq, Yq) == (j, i)`` returns ``V[i-1, j-1]`` exactly.
@@ -76,13 +76,8 @@ def sample_bicubic(VV: jnp.ndarray, Xq: jnp.ndarray, Yq: jnp.ndarray, pack_pairs
     ``node_pot`` does (``gqmap_gpu_mixture.m:157-161``).
 
     Implementation: ONE flat ``take`` over a stacked 16-offset index array,
-    then the separable Keys weight contraction — the TPU-native equivalent
-    of the reference's 16 scalar reads. Two formulations that look
-    equivalent are catastrophically slow on TPU: a ``lax.gather`` of
-    (B, 4, 4) patches gets layout-padded to (4, 128) tiles (32x HBM), and
-    16 *separate* take ops fused into one program fall off XLA's fast
-    gather path (~10^4x slower than a single batched take, measured on
-    v5e).
+    then the separable Keys weight contraction — the vectorized equivalent
+    of the reference's 16 scalar reads.
     """
     M2, N2 = VV.shape
     M, N = M2 - 2, N2 - 2
@@ -105,8 +100,8 @@ def sample_bicubic(VV: jnp.ndarray, Xq: jnp.ndarray, Yq: jnp.ndarray, pack_pairs
     wy = _cubic_weights(to)
     wx = _cubic_weights(so)
     if pack_pairs and dtype == jnp.float32:
-        # Gathers are index-rate-bound on TPU; packing horizontally adjacent
-        # taps into complex64 halves the tap count (8 instead of 16).
+        # Packing horizontally adjacent taps into complex64 halves the
+        # gather index count (8 instead of 16).
         Wc = jax.lax.complex(VV[:, :-1], VV[:, 1:]).reshape(-1)
         N2c = N2 - 1
         basec = (iy.astype(jnp.int32) - 1) * N2c + (ix.astype(jnp.int32) - 1)
@@ -179,8 +174,7 @@ def upsample_cubic(V: jnp.ndarray, rfc: int) -> jnp.ndarray:
 
     # The refined grid is REGULAR: the fractional offset cycles with period
     # r, so the whole upsample is a separable phase-stencil — per phase, a
-    # 4-tap weighted sum of shifted arrays (gather-free: arbitrary-index
-    # gathers run at scalar rate on TPU, but shifts are free).
+    # 4-tap weighted sum of shifted arrays (gather-free).
     fr = jnp.arange(r, dtype=dtype) / r                      # (r,)
     w = jnp.stack(_cubic_weights(fr), axis=0) * 0.5          # (4, r)
 

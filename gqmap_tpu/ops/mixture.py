@@ -1,6 +1,6 @@
 """Per-site 1-D Gaussian-mixture mode extraction (MAP readout).
 
-TPU-native replacement for the reference's compiled ``get_map_mex`` /
+Vectorized replacement for the reference's compiled ``get_map_mex`` /
 ``findMap_mex`` binaries (behavioral spec: ``legacy/findMixMax.m:39-70``):
 for every lattice site and flow channel, the mode of the 1-D mixture
 ``sum_l alpha_l N(x; mu_l, sigma_l)`` is found by
@@ -12,8 +12,8 @@ for every lattice site and flow channel, the mode of the 1-D mixture
 3. keeping the continuous optimum only when it strictly beats the best
    spike (``findMixMax.m:54-58``).
 
-Everything is embarrassingly parallel over the (M, N) lattice — a pure VPU
-workload with no gathers.
+Everything is embarrassingly parallel over the (M, N) lattice — a pure
+elementwise workload with no gathers.
 """
 
 from __future__ import annotations

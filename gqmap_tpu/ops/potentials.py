@@ -6,9 +6,9 @@ bicubically sampled second frame (``gqmap_gpu_mixture.m:156-179``). Edge
 (``:180-182``). The "Super" variant sums the node potential over a PxP patch
 of image pixels per flow node (``gqmap_gpuSuper_mix_entropy.m:94-105``).
 
-Layout convention (TPU-native): the lattice axes (M, N) are the TRAILING
-two axes of every array; quadrature-chunk / mixture-component / edge axes
-lead. Trailing small axes would be padded to the (8, 128) native tile.
+Layout convention: the lattice axes (M, N) are the TRAILING two axes of
+every array; quadrature-chunk / mixture-component / edge axes lead, so
+every elementwise pass over the lattice is contiguous.
 
 Legacy potential families are kept as first-class options so the framework
 subsumes the whole solver lineage:

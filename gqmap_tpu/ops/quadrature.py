@@ -1,6 +1,6 @@
 """Gauss-Hermite quadrature rules and precomputed 2-D tensor-product tables.
 
-TPU-native rebuild of the reference rule construction
+Rebuild of the reference rule construction
 (``GaussHermite_2.m:21-32``): nodes/weights of the order-K Gauss-Hermite
 rule obtained by the Golub-Welsch algorithm, i.e. the eigendecomposition of
 the symmetric tridiagonal Jacobi matrix with off-diagonal ``sqrt(i/2)``.
@@ -9,7 +9,7 @@ The 2-D tensor-product tables mirror the ``meshgrid``-derived constants of
 ``gqmap_gpu_mixture.m:9-10`` (XI, XJ, WIWJ, XIXJ, XI^2+XJ^2, XI^2-XJ^2),
 flattened over the K^2 points and padded to a chunk multiple with
 zero-weight points so the quadrature loop can be expressed as a fixed-shape
-``lax.scan`` on TPU (padded points have WIWJ = 0 and therefore contribute
+``lax.scan`` (padded points have WIWJ = 0 and therefore contribute
 exactly nothing to any accumulated sum).
 """
 

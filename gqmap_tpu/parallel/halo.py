@@ -4,10 +4,11 @@ The GSPMD path (:mod:`gqmap_tpu.parallel.sharded`) lets XLA partition the
 single-device program. This module is the explicit alternative: the lattice
 is block-sharded over the ``(x, y)`` mesh axes, each sweep exchanges
 exactly one boundary row/column of the per-site Gaussian parameters with
-its grid neighbors via ``lax.ppermute`` (neighbor-ring traffic over ICI),
+its grid neighbors via ``lax.ppermute`` (neighbor-ring traffic),
 and the Energy/dalpha/|dmu| scalars are psum'd — the communication pattern
 SURVEY.md §2.5 prescribes for the spatial-decomposition axis, written out
-by hand so it can later be fused into Pallas ring kernels.
+by hand. Each shard runs the GPU kernels on its local block
+(:func:`gqmap_tpu.models.gqmap.use_kernel`).
 
 Semantics are identical to the single-device sweep (the wrap-around halo
 reproduces ``circshift``; the frozen border ring makes the wrap contribution
@@ -16,19 +17,13 @@ inert, exactly as in the reference — ``gqmap_gpu_mixture.m:37-46``).
 
 from __future__ import annotations
 
-
-
 import jax
 import jax.numpy as jnp
+from jax import shard_map as _shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..config import GQMAPConfig
 from ..models.gqmap import DistHooks, GQState, Problem, make_sweep
-
-try:  # jax >= 0.4.35
-    from jax import shard_map as _shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _shard_map
 
 __all__ = ["halo_roll", "make_halo_sweep"]
 

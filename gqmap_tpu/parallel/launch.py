@@ -1,12 +1,11 @@
 """Multi-host launch helper.
 
-On a TPU pod slice, run the same program on every host; call
-:func:`initialize` first — it wires up ``jax.distributed`` (cross-host
-collectives ride DCN, intra-slice ICI) and returns the global mesh
-spanning every chip. The sweep itself is host-count-agnostic: the GSPMD
-and halo paths only see the mesh.
+On several hosts, run the same program on every host and call
+:func:`initialize` first — it wires up ``jax.distributed`` — then build the
+global mesh spanning every device. The sweep itself is host-count-agnostic:
+the GSPMD and halo paths only see the mesh.
 
-Single-process multi-device (one host, N chips) needs no initialization;
+Single-process multi-device (one host, N cards) needs no initialization;
 ``make_mesh`` over ``jax.devices()`` suffices.
 """
 
@@ -23,8 +22,8 @@ __all__ = ["initialize", "global_mesh", "host_to_global"]
 def initialize(coordinator_address=None, num_processes=None, process_id=None):
     """Initialize the JAX distributed runtime (no-op if single process).
 
-    Arguments default to the standard environment-variable autodetection
-    (TPU pods populate them); pass explicitly elsewhere.
+    Pass the coordinator address (``host:port``), the process count and
+    this process's id explicitly: nothing detects a cluster by itself.
     """
     if num_processes is not None and num_processes > 1 or coordinator_address:
         jax.distributed.initialize(
@@ -36,7 +35,7 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None):
 
 
 def global_mesh(dp: int = 1):
-    """The (dp, x, y) mesh over every addressable chip in the job."""
+    """The (dp, x, y) mesh over every device in the job."""
     return make_mesh(len(jax.devices()), dp=dp)
 
 

@@ -7,8 +7,9 @@ Parallelism axes (SURVEY.md section 2.5):
 * ``x`` / ``y`` — 2-D spatial block-sharding of the pixel lattice (the
   large-image scaling axis; absent in the single-GPU reference). Every
   neighbor gather/scatter is a ``jnp.roll``, which XLA's SPMD partitioner
-  lowers to collective-permutes riding ICI; the Energy/dalpha/|dmu|
-  reductions become psums.
+  lowers to collective-permutes; the Energy/dalpha/|dmu| reductions become
+  psums. The cards of a host are joined all to all (NVLink), so the mesh
+  shape follows the lattice alone.
 
 Image constants (frame 1 and the padded frame 2) are replicated: at
 Middlebury scale they are ~1 MB and every node's bounded-range bicubic

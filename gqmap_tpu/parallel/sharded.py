@@ -4,8 +4,8 @@ The single-device sweep (:mod:`gqmap_tpu.models.gqmap`) is already one pure
 XLA program over the whole lattice, so distribution is sharding-annotation
 only: jit the same function with NamedShardings and let the SPMD partitioner
 insert the halo collective-permutes (for ``jnp.roll``) and psums (for the
-Energy/dalpha/|dmu| scalars). This is the idiomatic TPU equivalent of the
-reference's planned-but-never-written distributed backend
+Energy/dalpha/|dmu| scalars). This stands in for the reference's
+planned-but-never-written distributed backend
 (``legacy/gqmap_cuda.m``). The frame constants are replicated (~1 MB at
 Middlebury scale; every node's bounded-range bicubic gather may touch an
 arbitrary window of frame 2).
@@ -109,7 +109,7 @@ def shard_state(state: GQState, mesh: Mesh, batched: bool = False) -> GQState:
 
 def make_sharded_sweep(cfg: GQMAPConfig, image_shape, mesh: Mesh):
     """jit-compiled sweep with the lattice block-sharded over (x, y)."""
-    sweep = make_sweep(cfg, image_shape)
+    sweep = make_sweep(cfg, image_shape, sharded=True)
     sh = state_sharding(mesh, batched=False)
     return jax.jit(sweep, in_shardings=(problem_sharding(mesh, cfg), sh))
 
@@ -120,7 +120,7 @@ def make_batched_sharded_sweep(cfg: GQMAPConfig, image_shape, mesh: Mesh):
     This is the full parallelism stack — DP over sequences x 2-D spatial
     decomposition — in one jitted program.
     """
-    sweep = make_sweep(cfg, image_shape)
+    sweep = make_sweep(cfg, image_shape, sharded=True)
     vsweep = jax.vmap(sweep, in_axes=(None, 0))
     sh = state_sharding(mesh, batched=True)
     return jax.jit(vsweep, in_shardings=(problem_sharding(mesh, cfg), sh))

@@ -1,7 +1,7 @@
 """Checkpoint / exact-resume of the solver state.
 
 The reference only persists final results (``optical_flow.m:28``); for
-long multi-host TPU runs we checkpoint the full variational state
+long multi-device runs we checkpoint the full variational state
 ``(it, w, mu, sigma, pn, rou, T)`` plus config identity, enabling exact
 resume after preemption (SURVEY.md section 5).
 """

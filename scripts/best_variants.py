@@ -125,13 +125,12 @@ def main(seqs=("Teddy", "Cones")):
     from gqmap_tpu.config import GQMAPConfig
     from gqmap_tpu.io.dataset import load_sequence
     from gqmap_tpu.models.blockmatch import block_matching_init
+    from gqmap_tpu.utils import enable_compile_cache
 
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                          os.path.expanduser("~/.jax_cache"))
-    # Variant-major priority order so a wall-clock-limited session records
-    # the cheapest/highest-value rows first; every row logs its real `iters`.
-    # bm/l1 at the full 30000-iteration reference budget cost ~20 min each
-    # on one v5e; GQMAP_VARIANTS_FULLRES_ITS caps them honestly (the init
+    enable_compile_cache()
+    # Variant-major priority order so a wall-clock-limited run records the
+    # cheapest/highest-value rows first; every row logs its real `iters`.
+    # GQMAP_VARIANTS_FULLRES_ITS caps the full-resolution rows (the init
     # advantage shows up early — a capped run is a valid "reaches X by N").
     fullres_its = int(os.environ.get("GQMAP_VARIANTS_FULLRES_ITS", "0"))
 

@@ -3,7 +3,7 @@
 The scalar spec below is written directly from the MATLAB interp2
 cubic-convolution definition (padded array + 16-tap Keys weights,
 ``gqmap_gpu_mixture.m:156-179, 191-208``) using plain Python loops; the
-vectorized TPU path must agree to float64 roundoff.
+vectorized path must agree to float64 roundoff.
 """
 
 import numpy as np

@@ -1,30 +1,44 @@
-"""Pallas kernel parity vs the XLA ops path (interpreter mode on CPU)."""
+"""GPU reduced-edge kernel parity vs the XLA ops path (interpret mode)."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gqmap_tpu.ops.gq import gq_accumulate
-from gqmap_tpu.ops.potentials import make_edge_pot
-from gqmap_tpu.ops.quadrature import build_table
+from gqmap_tpu.kernels.edge_reduced_gq import edge_reduced_grads_pallas
+from gqmap_tpu.ops.gq import EDGE, finalize, gq_accumulate_diff
+from gqmap_tpu.ops.potentials import make_edge_pot_diff
+from gqmap_tpu.ops.quadrature import build_table_1d
 
 
-def test_edge_gq_pallas_matches_ops():
-    from gqmap_tpu.kernels.edge_gq import edge_gq_pallas
+def _edge_case(L, M, N, seed, dtype=jnp.float32):
+    r = np.random.default_rng(seed)
+    mu = jnp.asarray(r.normal(size=(2, L, M, N)), dtype)
+    sg = jnp.asarray(r.uniform(0.5, 3, (2, L, M, N)), dtype)
+    u2e = jnp.stack([jnp.roll(mu, -1, -2), jnp.roll(mu, -1, -1)], axis=0)
+    o2e = jnp.stack([jnp.roll(sg, -1, -2), jnp.roll(sg, -1, -1)], axis=0)
+    rou = jnp.asarray(r.uniform(-0.9, 0.9, (2, 2, L, M, N)), dtype)
+    alpha = jnp.asarray(r.dirichlet(np.ones(L)), dtype)
+    return mu, sg, u2e, o2e, rou, alpha
 
-    r = np.random.default_rng(0)
-    K = 5
-    shape = (2, 2, 3, 16, 128)
-    u1 = jnp.asarray(r.normal(size=shape[2:]), jnp.float32)[None, None]
-    u2 = jnp.asarray(r.normal(size=shape), jnp.float32)
-    o1 = jnp.asarray(r.uniform(0.5, 3, shape[2:]), jnp.float32)[None, None]
-    o2 = jnp.asarray(r.uniform(0.5, 3, shape), jnp.float32)
-    p = jnp.asarray(r.uniform(-0.9, 0.9, shape), jnp.float32)
 
-    tab = build_table(K, 0, np.float32)
-    f = make_edge_pot(5.0, 1e-6)
-    want = gq_accumulate(f, u1, u2, o1, o2, p, tab)
-    got = edge_gq_pallas(u1, u2, o1, o2, p, K, 5.0, 1e-6, rows=8, interpret=True)
+def _xla_edge(mu, sg, u2e, o2e, rou, alpha, T, k1):
+    tab1 = build_table_1d(k1, dtype=np.dtype(mu.dtype))
+    gd = make_edge_pot_diff(5.0, 1e-6)
+    raw = gq_accumulate_diff(gd, mu[None], u2e, sg[None], o2e, rou, tab1)
+    return finalize(raw, alpha.reshape(-1, 1, 1), sg[None], o2e, rou, T, EDGE)
+
+
+def test_edge_reduced_pallas_matches_ops():
+    # fused reduced-edge kernel (quad + transform + finalize in registers)
+    # vs the XLA gq_accumulate_diff + finalize path, on the edge-lattice
+    # shapes, f32 as on the card
+    mu, sg, u2e, o2e, rou, alpha = _edge_case(3, 17, 23, seed=1)
+    T = jnp.asarray(0.17, jnp.float32)
+    want = _xla_edge(mu, sg, u2e, o2e, rou, alpha, T, 13)
+    got = edge_reduced_grads_pallas(
+        mu, sg, u2e, o2e, rou, alpha, T, 13, 5.0, 1e-6, EDGE,
+        block=64, interpret=True,
+    )
     for name in want._fields:
         np.testing.assert_allclose(
             np.asarray(getattr(got, name)),
@@ -35,38 +49,25 @@ def test_edge_gq_pallas_matches_ops():
         )
 
 
-def test_edge_reduced_pallas_matches_ops():
-    # fused reduced-edge kernel (quad + transform + finalize in VMEM) vs the
-    # XLA gq_accumulate_diff + finalize path, on the real edge-lattice shapes
-    from gqmap_tpu.kernels.edge_reduced_gq import edge_reduced_grads_pallas
-    from gqmap_tpu.ops.gq import EDGE, finalize, gq_accumulate_diff
-    from gqmap_tpu.ops.potentials import make_edge_pot_diff
-    from gqmap_tpu.ops.quadrature import build_table_1d
-
-    r = np.random.default_rng(1)
-    L, M, N = 3, 17, 23  # ragged M: exercises the OOB row-block masking
-    mu = jnp.asarray(r.normal(size=(2, L, M, N)), jnp.float32)
-    sg = jnp.asarray(r.uniform(0.5, 3, (2, L, M, N)), jnp.float32)
-    u2e = jnp.stack([jnp.roll(mu, -1, -2), jnp.roll(mu, -1, -1)], axis=0)
-    o2e = jnp.stack([jnp.roll(sg, -1, -2), jnp.roll(sg, -1, -1)], axis=0)
-    rou = jnp.asarray(r.uniform(-0.9, 0.9, (2, 2, L, M, N)), jnp.float32)
-    alpha = jnp.asarray([0.5, 0.3, 0.2], jnp.float32)
-    T = jnp.asarray(0.17, jnp.float32)
-    k1 = 13
-
-    tab1 = build_table_1d(k1, dtype=np.float32)
-    gd = make_edge_pot_diff(5.0, 1e-6)
-    raw = gq_accumulate_diff(gd, mu[None], u2e, sg[None], o2e, rou, tab1)
-    want = finalize(raw, alpha.reshape(L, 1, 1), sg[None], o2e, rou, T, EDGE)
+@pytest.mark.parametrize("L,M,N,block,k1", [
+    (1, 5, 7, 32, 9),      # one component, tail far from a full block
+    (2, 3, 452, 512, 21),  # flagship row width and edge order, one block/plane
+    (3, 9, 31, 128, 21),   # three components, several blocks with a tail
+])
+def test_edge_reduced_pallas_f64_ragged(L, M, N, block, k1):
+    # f64 parity to roundoff across ragged site tails, component counts and
+    # block sizes; T != 0 exercises the Bethe edge-entropy terms
+    mu, sg, u2e, o2e, rou, alpha = _edge_case(L, M, N, seed=L + M,
+                                              dtype=jnp.float64)
+    T = jnp.asarray(0.3, jnp.float64)
+    want = _xla_edge(mu, sg, u2e, o2e, rou, alpha, T, k1)
     got = edge_reduced_grads_pallas(
         mu, sg, u2e, o2e, rou, alpha, T, k1, 5.0, 1e-6, EDGE,
-        rows=8, interpret=True,
+        block=block, interpret=True,
     )
     for name in want._fields:
         np.testing.assert_allclose(
             np.asarray(getattr(got, name)),
             np.asarray(getattr(want, name)),
-            rtol=2e-5,
-            atol=2e-4,
-            err_msg=name,
+            rtol=1e-10, atol=1e-10, err_msg=name,
         )

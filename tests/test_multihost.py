@@ -2,7 +2,7 @@
 
 Spawns 2 OS processes, each owning 2 CPU devices, wired together with
 ``jax.distributed`` through the launch helper (gloo CPU collectives stand in
-for ICI/DCN). The pair runs the flagship (cosine) sweep over a 4-device
+for NCCL). The pair runs the flagship (cosine) sweep over a 4-device
 global mesh built from globally-sharded arrays (``host_to_global``) and must
 produce the same psum'd energy as a single-process run of the identical
 problem — exercising ``parallel/launch.py`` end to end (SURVEY.md §2.5's

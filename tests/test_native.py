@@ -45,7 +45,7 @@ def test_mixture_map_matches_jax():
     sgu = r.uniform(0.3, 2.0, (M, N, L))
     sgv = r.uniform(0.3, 2.0, (M, N, L))
     got = native.mixture_map(alpha, muu, sgu, muv, sgv)
-    # extract_map uses the TPU-native (L, M, N) layout
+    # extract_map uses the (L, M, N) lattice-trailing layout
     to_lmn = lambda a: jnp.moveaxis(jnp.asarray(a), -1, 0)
     want = np.asarray(extract_map(jnp.asarray(alpha), *map(to_lmn, (muu, sgu, muv, sgv))))
     # compare by achieved density (modes can tie) per channel

@@ -2,7 +2,7 @@
 
 Runs on the forced-8-device CPU backend (conftest), exercising the same
 GSPMD partitioning (collective-permute halos for ``jnp.roll``, psums for the
-global reductions) the TPU mesh path uses (SURVEY.md section 4).
+global reductions) a device mesh uses (SURVEY.md section 4).
 """
 
 import jax
